@@ -1,270 +1,76 @@
-"""Headline benchmark: keys/sec on uniform 32-bit keys, single chip.
+"""Headline benchmark: keys/sec of ``rs.sort`` on uniform 32-bit keys, one
+GPU.
+
+    BENCH_LOGN=28 python bench.py
 
 Prints exactly ONE JSON line:
-    {"metric": ..., "value": N, "unit": "keys/s", "vs_baseline": N}
+    {"metric": ..., "value": N, "unit": "keys/s", "vs_baseline": N,
+     "engine": ..., "device": ..., "card": ...}
 
-vs_baseline = our throughput / jnp.sort (XLA comparator sort) throughput on
-the same chip and input — the measurable stand-in for the reference's
-(unpublished) numbers per BASELINE.md.  Details go to stderr.
+``vs_baseline`` = ``rs.sort`` throughput / ``jnp.sort`` throughput on the
+same card and input.  The sort engine is XLA's own sort, so this is about
+1.0 until an engine of this package beats it.  ``card`` is the name and
+power limit ``nvidia-smi`` reports.  Exits non-zero without a GPU or when
+the result fails its gate (ascending, same multiset as the input).
+Details go to stderr.
 """
 
 import json
 import os
+import subprocess
 import sys
 import time
 
-import numpy as np
+import jax
+import jax.numpy as jnp
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
-
-import jax  # noqa: E402
-import jax.numpy as jnp  # noqa: E402
-
-try:
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-except Exception:
-    pass
-
-import inplacemsdradixsort_tpu as rs  # noqa: E402
-from inplacemsdradixsort_tpu.config import SortConfig  # noqa: E402
+import inplacemsdradixsort as rs
+from inplacemsdradixsort.utils import checking, compile_cache
 
 LOG = lambda *a: print(*a, file=sys.stderr, flush=True)
 
 
-def _sync(x):
-    np.asarray(jax.device_get(x.ravel()[-8:]))
-
-
-def time_fn(f, iters=3):
-    f()  # warm
+def time_fn(f, iters=5):
+    jax.block_until_ready(f())  # warm
     t0 = time.perf_counter()
     for _ in range(iters):
-        f()
+        jax.block_until_ready(f())
     return (time.perf_counter() - t0) / iters
 
 
-# HBM roofline accounting (BASELINE.md north star).  The reference's
-# cost model is ~4.5 full read+write sweeps of the data (SURVEY.md §6:
-# partition P5, block permute P9, 2-3 local passes), i.e. 36 bytes/key
-# at u32; v5e HBM ~819 GB/s -> ~22.7 Gkeys/s sweep-roofline.
-HBM_GBS = float(os.environ.get("BENCH_HBM_GBS", "819"))
-SWEEPS = 4.5
-
-
-def log_roofline(rate: float, n: int, t: float):
-    roof = HBM_GBS * 1e9 / (SWEEPS * 8)
-    LOG(f"roofline: {rate * SWEEPS * 8 / 1e9:.0f} GB/s sweep-equivalent "
-        f"of {HBM_GBS:.0f} GB/s HBM; {100 * rate / roof:.1f}% of the "
-        f"{roof / 1e9:.1f} Gkeys/s {SWEEPS}-sweep roofline")
-
-
-def _xla_base_rate():
-    """XLA cannot sort 2^30+ resident either: scale its measured 2^28
-    rate as the (optimistic-for-XLA) baseline."""
-    keys28 = jax.random.bits(jax.random.key(1), (1 << 28,), jnp.uint32)
-    jsort = jax.jit(jnp.sort)
-    tb = time_fn(lambda: _sync(jsort(keys28)))
-    return (1 << 28) / tb
-
-
-def bench_resident(logn: int):
-    """The north-star cell (BASELINE.md config 2): resident in-place v5
-    sort at the largest size class that fits one chip.  2^31 exceeds
-    half of HBM, so W is assembled chunk by chunk
-    (engine_v5.sort_v5_from_chunks) and the result stays in the raw 2D
-    W form (zero-copy; engine_v5._step_extract_raw); validation uses
-    the slab-chunked raw verifier (no N-sized temporaries).
-
-    logn >= 31 runs n = 2^31 - 2^20: the resident ceiling under int32
-    engine positions.  EXACTLY 2^31+ keys belong to the out-of-core
-    path (BENCH_OOC=1 -> bench_chunked) or the multi-host dsort."""
-    from inplacemsdradixsort_tpu.config import SortConfig
-    from inplacemsdradixsort_tpu.ops import engine_v5 as ev5
-    from inplacemsdradixsort_tpu.utils.checking import raw_check_2d
-
-    n = (1 << 31) - (1 << 20) if logn >= 31 else 1 << logn
-    cfg = SortConfig(engine="v5")
-    LOGC = 27
-    CS = n // 16 if logn >= 31 else 1 << LOGC
-    assert CS % 128 == 0 and n % CS == 0, (n, CS)
-    nchunks = n // CS
-    LOG(f"bench: resident {n} (~2^{logn}) uniform u32 via v5 in-place "
-        f"from-chunks on {jax.devices()[0]}")
-
-    @jax.jit
-    def gen(i):
-        k = jax.random.bits(
-            jax.random.fold_in(jax.random.key(0), i), (CS,),
-            dtype=jnp.uint32)
-        return k, jnp.sum(k, dtype=jnp.uint32)
-
-    in_sum = 0
-    for i in range(nchunks):
-        in_sum = (in_sum + int(jax.device_get(gen(i)[1]))) % (1 << 32)
-
-    def run():
-        t0 = time.perf_counter()
-        ok, _ = ev5.sort_v5_from_chunks(
-            lambda i: (gen(i)[0],), nchunks, n, cfg, raw=True)
-        np.asarray(jax.device_get(ok[-1:, -8:]))
-        return time.perf_counter() - t0, ok
-
-    t, ok = run()
-    s, srt, _ = raw_check_2d(ok, n)
-    sorted_ok = bool(jax.device_get(srt))
-    chk = (int(jax.device_get(s)) % (1 << 32)) == in_sum
-    LOG(f"first run {t*1e3:.0f} ms sorted={sorted_ok} checksum={chk}")
-    times = [t]
-    for _ in range(2):
-        ok = None
-        t2, ok = run()
-        times.append(t2)
-    best = min(times)
-    rate = n / best if (sorted_ok and chk) else 0.0
-    LOG(f"resident v5: best {best*1e3:.0f} ms "
-        f"({rate/1e9:.3f} Gkeys/s)")
-    log_roofline(rate, n, best)
-    base_rate = _xla_base_rate()
-    print(json.dumps({
-        "metric": f"keys/sec, 2^{logn} uniform u32, 1 chip "
-                  f"(resident in-place v5)",
-        "value": round(rate, 1), "unit": "keys/s",
-        "vs_baseline": round(rate / base_rate, 4),
-    }))
-
-
-def bench_chunked(logn: int):
-    """2^31+ keys exceed resident HBM (input + arenas + output): run the
-    out-of-core two-read path (ops/chunked.sort_external) over generated
-    chunks — BASELINE.md config 2 at full scale.  Validates sortedness,
-    piece boundaries, total count and the mod-2^32 checksum on device."""
-    from inplacemsdradixsort_tpu.ops.chunked import sort_external
-
-    n = 1 << logn
-    logc = min(28, logn - 1)
-    nchunks = 1 << (logn - logc)
-    LOG(f"bench: 2^{logn} uniform u32 via chunked path "
-        f"({nchunks} x 2^{logc} chunks) on {jax.devices()[0]}")
-
-    @jax.jit
-    def gen(i):
-        k = jax.random.bits(
-            jax.random.fold_in(jax.random.key(0), i), (1 << logc,),
-            dtype=jnp.uint32)
-        return k, jnp.sum(k)          # u32 wraparound = checksum mod 2^32
-
-    in_sum = 0
-    seen = set()
-
-    def chunk_fn(i):
-        nonlocal in_sum
-        k, s = gen(i)
-        if i not in seen:             # first of the two reads
-            seen.add(i)
-            in_sum = (in_sum + int(jax.device_get(s))) % (1 << 32)
-        return (k,)
-
-    @jax.jit
-    def piece_stats(p):
-        ok = jnp.all(p[1:] >= p[:-1])
-        return ok, p[0], p[-1], jnp.sum(p)
-
-    t0 = time.perf_counter()
-    out_sum, total, prev_last, ok_all = 0, 0, None, True
-    for piece in sort_external(chunk_fn, nchunks, n):
-        p = piece[0]
-        ok, first, last, s = (np.asarray(x) for x in
-                              jax.device_get(piece_stats(p)))
-        ok_all &= bool(ok) and (prev_last is None or first >= prev_last)
-        prev_last = last
-        out_sum = (out_sum + int(s)) % (1 << 32)
-        total += int(p.shape[0])
-    t = time.perf_counter() - t0
-
-    chk = (out_sum == in_sum) and (total == n)
-    LOG(f"chunked: sorted={ok_all} checksum={chk} "
-        f"({t:.1f} s, {n/t/1e9:.3f} Gkeys/s)")
-    log_roofline(n / t, n, t)
-    base_rate = _xla_base_rate()
-    rate = n / t if (ok_all and chk) else 0.0
-    print(json.dumps({
-        "metric": f"keys/sec, 2^{logn} uniform u32, 1 chip (out-of-core)",
-        "value": round(rate, 1), "unit": "keys/s",
-        "vs_baseline": round(rate / base_rate, 4),
-    }))
-
-
 def main():
-    logn = int(os.environ.get("BENCH_LOGN", "31"))
+    compile_cache.enable()
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        raise SystemExit(f"bench: needs a GPU; JAX found {dev.platform}")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    engine = rs.DEFAULT_CONFIG.engine
+    logn = int(os.environ.get("BENCH_LOGN", "28"))
     n = 1 << logn
-    # 2^30+ headline: the resident in-place v5 engine at the north-star
-    # size (~1.25 x N peak HBM — the reference's in-place contract,
-    # msb_64.c:497-699).  BENCH_OOC=1 benches the out-of-core two-read
-    # path instead (the 2^32+ size class).
-    if logn >= 30:
-        if os.environ.get("BENCH_OOC", "0") == "1":
-            bench_chunked(logn)
-        else:
-            bench_resident(logn)
-        return
-    LOG(f"bench: 2^{logn} uniform uint32 keys on {jax.devices()[0]}")
+    LOG(f"bench: 2^{logn} uniform uint32 keys, engine {engine}, on {card}")
     keys = jax.random.bits(jax.random.key(0), (n,), dtype=jnp.uint32)
-    _sync(keys)
+    ours = jax.jit(lambda k: rs.sort(k).keys)
+    out = jax.block_until_ready(ours(keys))
+    if not (checking.device_is_sorted(out)
+            and checking.fingerprint(out) == checking.fingerprint(keys)):
+        raise SystemExit(f"bench: engine {engine} failed its gate")
+    del out
 
-    platform = jax.devices()[0].platform
-    want = os.environ.get(
-        "BENCH_ENGINE", "v4" if platform == "tpu" else "xla"
-    )
-    # engine ladder: if the preferred engine fails its correctness gate
-    # (or crashes), fall back down rather than reporting 0
-    ladder = [want] + [e for e in ("v3", "xla") if e != want]
-
-    in_sum = int(np.asarray(jax.device_get(keys)).astype(np.uint64).sum())
-    cfg = None
-    for engine in ladder:
-        cfg = SortConfig(engine=engine)
-
-        def ours():
-            res = rs.sort(keys, config=cfg)
-            if not res.synced:      # v4 syncs via its overflow fetch;
-                _sync(res.keys)     # a second fetch is a pure RTT tax
-            return res
-
-        try:
-            out = np.asarray(jax.device_get(ours().keys))
-            ok = bool(np.all(out[1:] >= out[:-1])) and out.shape[0] == n
-            chk = int(out.astype(np.uint64).sum()) == in_sum
-        except Exception as e:  # device trap / compile failure
-            LOG(f"engine {engine} raised: {type(e).__name__}: {e}")
-            ok = chk = False
-        LOG(f"engine {engine}: sorted={ok} checksum={chk}")
-        if ok and chk:
-            break
-    else:
-        print(json.dumps({
-            "metric": f"keys/sec, 2^{logn} uniform u32, 1 chip",
-            "value": 0.0, "unit": "keys/s", "vs_baseline": 0.0,
-        }))
-        return
-
-    t_ours = time_fn(lambda: ours())
-    jsort = jax.jit(jnp.sort)
-
-    def baseline():
-        _sync(jsort(keys))
-
-    t_base = time_fn(baseline)
-
-    ours_rate = n / t_ours
-    base_rate = n / t_base
-    LOG(f"ours: {t_ours*1e3:.0f} ms ({ours_rate/1e9:.3f} Gkeys/s)  "
-        f"jnp.sort: {t_base*1e3:.0f} ms ({base_rate/1e9:.3f} Gkeys/s)")
-    log_roofline(ours_rate, n, t_ours)
+    t_ours = time_fn(lambda: ours(keys))
+    t_base = time_fn(lambda: jnp.sort(keys))
+    LOG(f"rs.sort: {t_ours*1e3:.3f} ms  jnp.sort: {t_base*1e3:.3f} ms")
     print(json.dumps({
-        "metric": f"keys/sec, 2^{logn} uniform u32, 1 chip",
-        "value": round(ours_rate, 1),
+        "metric": f"keys/sec, 2^{logn} uniform u32, 1 GPU",
+        "value": n / t_ours,
         "unit": "keys/s",
-        "vs_baseline": round(ours_rate / base_rate, 4),
+        "vs_baseline": t_base / t_ours,
+        "engine": engine,
+        "device": dev.device_kind,
+        "card": card,
     }))
 
 

@@ -3,9 +3,9 @@
 # (BASELINE.json config 1: 2^27 uniform keys, msb_64 on CPU).
 #
 # Requirements: a many-core x86 NUMA host with libnuma-dev (numa.h).
-# The reference hard-codes 64 threads (msb_64.c:2266).  The TPU-attached
-# VM in this environment has 1 vCPU and no numa.h, so this script is the
-# *harness* for the anchor measurement, to be run on a suitable CPU host.
+# The reference hard-codes 64 threads (msb_64.c:2266), so this script is
+# the *harness* for the anchor measurement, to be run on a suitable CPU
+# host; on a small VM without numa.h its number means nothing.
 set -euo pipefail
 
 REF=${REF:-/root/reference}

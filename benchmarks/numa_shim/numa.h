@@ -1,5 +1,5 @@
 /* Single-node libnuma shim for running the reference binary on hosts
- * without libnuma-dev (this TPU-attached VM).  Provides exactly the
+ * without libnuma-dev (a small VM).  Provides exactly the
  * seven libnuma entry points the reference uses
  * (/root/reference/src/msb_64.c:49,100-109,206-237,2323-2327) with
  * single-NUMA-node semantics: node 0 everywhere, interleaved alloc =

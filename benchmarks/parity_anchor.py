@@ -1,7 +1,7 @@
 """BASELINE config 1: bitwise parity vs the rebuilt reference binary.
 
 Runs (or reuses) the reference ``msb_64`` with the reconstructed driver,
-then sorts the identical key stream with the TPU engine's u64 path and
+then sorts the identical key stream with ``rs.sort`` (u64 keys) and
 compares:
 
   - input checksum (sum of keys mod 2^64) — stream identity
@@ -53,7 +53,7 @@ def gen_input():
     skewed rows, as the binary file the reference driver reads)."""
     n = 1 << LOGN
     if DIST == "uniform":
-        from inplacemsdradixsort_tpu.utils import rng as _rng
+        from inplacemsdradixsort.utils import rng as _rng
         return _rng.uniform_u64(42, n)
     if os.path.exists(INPUT):
         arr = np.fromfile(INPUT, dtype=np.uint64)
@@ -61,7 +61,7 @@ def gen_input():
         return arr
     import jax
     import jax.numpy as jnp
-    from inplacemsdradixsort_tpu.models import distributions as dist
+    from inplacemsdradixsort.models import distributions as dist
     theta = {"zipf075": 0.75, "zipf100": 1.0}[DIST]
     keys = dist.zipf(jax.random.key(7), n, theta=theta,
                      dtype=jnp.uint64)
@@ -96,14 +96,10 @@ def main():
 
     import jax
     import jax.numpy as jnp
-    import inplacemsdradixsort_tpu as rs  # noqa: F401
+    import inplacemsdradixsort as rs
 
-    hi = (keys >> np.uint64(32)).astype(np.uint32)
-    lo = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
-    from inplacemsdradixsort_tpu.ops import engine_v4
-    out_hi, rest = engine_v4.sort_v4(jnp.asarray(hi), (jnp.asarray(lo),))
-    ours = ((np.asarray(out_hi).astype(np.uint64) << np.uint64(32))
-            | np.asarray(rest[0]).astype(np.uint64))
+    with jax.enable_x64(True):
+        ours = np.asarray(jax.device_get(rs.sort(jnp.asarray(keys)).keys))
 
     checksum_out = int(np.sum(ours, dtype=np.uint64))
     bitwise = bool(np.array_equal(ours, ref_sorted))

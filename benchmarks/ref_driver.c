@@ -10,10 +10,9 @@
  * Build via benchmarks/baseline_reference.sh (links against the reference
  * sources in-place; nothing is copied into this repository).
  *
- * NOTE: needs a many-core NUMA host; the TPU-attached VM in this
- * environment has 1 vCPU, where the 64-thread requirement makes the
- * number meaningless — run on a real CPU host for the BASELINE.json
- * config-1 anchor.
+ * NOTE: needs a many-core NUMA host; on a small VM the 64-thread
+ * requirement makes the number meaningless — run on a real CPU host for
+ * the BASELINE.json config-1 anchor.
  */
 #include <stdio.h>
 #include <stdlib.h>
@@ -98,7 +97,7 @@ int main(int argc, char **argv) {
     rand64_t *gen = rand64_init(42);
     uint64_t checksum_in = 0;
     /* REF_INPUT=<path>: read the key multiset from a binary u64 file
-     * (e.g. a Zipfian stream dumped by the TPU-side generator) instead
+     * (e.g. a Zipfian stream dumped by the device-side generator) instead
      * of the built-in MT19937-64 stream — the skewed-input parity row
      * of BASELINE config 1. */
     const char *inpath = getenv("REF_INPUT");
@@ -149,7 +148,7 @@ int main(int argc, char **argv) {
         printf("  %-28s %llu us\n", desc[i], (unsigned long long)times[i]);
 
     /* REF_DUMP=<path>: write the sorted key sequence for the bitwise
-     * parity comparison against the TPU engine (BASELINE config 1). */
+     * parity comparison against rs.sort (BASELINE config 1). */
     const char *dump = getenv("REF_DUMP");
     if (dump) {
         FILE *f = fopen(dump, "wb");

@@ -1,16 +1,14 @@
 """Distributed sort over the 8-virtual-device CPU mesh (SURVEY.md §4d)."""
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from inplacemsdradixsort_tpu.config import SortConfig
-from inplacemsdradixsort_tpu.models import distributions as dist
-from inplacemsdradixsort_tpu.parallel import dsort
-from inplacemsdradixsort_tpu.parallel.mesh import make_sort_mesh
+from inplacemsdradixsort.config import SortConfig
+from inplacemsdradixsort.models import distributions as dist
+from inplacemsdradixsort.parallel import dsort
+from inplacemsdradixsort.parallel.mesh import make_sort_mesh
 
 
 def _mesh():
@@ -34,13 +32,11 @@ def test_distributed_sort(name):
 
 def test_distributed_sort_all_equal_overflow_retry():
     # all-equal keys overflow any fudge-capped exchange: one shard receives
-    # everything; the driver must retry with exact capacities
+    # everything; the exchange is sized from the exact count matrix
     mesh = _mesh()
     n = 1 << 12
     keys = jnp.full((n,), 12345, jnp.uint32)
-    res = dsort.distributed_sort(
-        keys, mesh=mesh, config=SortConfig(exchange_fudge=1.25)
-    )
+    res = dsort.distributed_sort(keys, mesh=mesh)
     got = dsort.gather_sorted(res)
     assert np.array_equal(got, np.asarray(keys))
 
@@ -62,25 +58,10 @@ def test_distributed_pairs_permutation():
     assert np.array_equal(kn[got_r], got_k)
 
 
-def test_distributed_v4_local_engine():
-    """The production (v4) engine as the local phase under shard_map:
-    one shared static geometry, per-shard plans (VERDICT r1 item 4)."""
-    mesh = _mesh()
-    n = 1 << 15
-    keys = dist.make("dup_heavy", jax.random.key(5), n, dtype=jnp.uint32)
-    cfg = SortConfig(interpret=True, v3_sort_rows=32, v3_rmax=8,
-                     v3_cap_rows=32)
-    res = dsort.distributed_sort(keys, mesh=mesh, config=cfg,
-                                 local_engine="v4")
-    got = dsort.gather_sorted(res)
-    assert np.array_equal(got, np.sort(np.asarray(keys)))
-    dsort.check_distributed(res)
-
-
 def test_distributed_host_chip_mesh():
     """2-level (hosts, chips) topology: collectives over the combined
     axes (the NUMAxthread analog, msb_64.c:206-237)."""
-    from inplacemsdradixsort_tpu.parallel.mesh import make_host_chip_mesh
+    from inplacemsdradixsort.parallel.mesh import make_host_chip_mesh
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
     mesh = make_host_chip_mesh(2, 4)
@@ -152,46 +133,3 @@ def test_ragged_exchange_pairs():
     order = np.lexsort((np.asarray(rids), np.asarray(keys)))
     assert np.array_equal(got_k, np.asarray(keys)[order])
     assert np.array_equal(got_r, np.asarray(rids)[order])
-
-
-def test_overlap_exchange_fused_path():
-    """overlap_exchange=True: ONE fused program runs the ragged
-    exchange with the per-round L1 hist accumulation and the v4 local
-    pipeline (hist injected, bounds from the global sample window) —
-    must match the sequential path bitwise, including under skew and
-    with payloads (SURVEY §2.6 item 4 exchange/compute overlap)."""
-    mesh = _mesh()
-    n = 1 << 15
-    rng = np.random.default_rng(11)
-    # skewed: half the keys in the top 1/16 of the space
-    hot = rng.integers(0xF0000000, 0xFFFFFFFF, n // 2, dtype=np.uint32)
-    cold = rng.integers(0, 2**32, n - n // 2, dtype=np.uint32)
-    keys = np.concatenate([hot, cold])
-    rng.shuffle(keys)
-    rids = np.arange(n, dtype=np.uint32)
-    cfg = SortConfig(interpret=True, v3_sort_rows=32, v3_rmax=8,
-                     v3_cap_rows=32, overlap_exchange=True)
-    res = dsort.distributed_sort(jnp.asarray(keys), jnp.asarray(rids),
-                                 mesh=mesh, config=cfg)
-    got_k = dsort.gather_sorted(res)
-    got_r = dsort.gather_rids(res)
-    order = np.argsort(keys, kind="stable")
-    np.testing.assert_array_equal(got_k, keys[order])
-    # permutation integrity: keys[rids] == sorted keys
-    np.testing.assert_array_equal(keys[got_r], got_k)
-    dsort.check_distributed(res)
-
-
-def test_overlap_exchange_keys_only_matches_sequential():
-    mesh = _mesh()
-    n = 1 << 14
-    keys = dist.make("dup_heavy", jax.random.key(3), n,
-                     dtype=jnp.uint32)
-    base = SortConfig(interpret=True, v3_sort_rows=32, v3_rmax=8,
-                      v3_cap_rows=32)
-    res_seq = dsort.distributed_sort(
-        keys, mesh=mesh, config=base, local_engine="v4")
-    cfg = dataclasses.replace(base, overlap_exchange=True)
-    res_ov = dsort.distributed_sort(keys, mesh=mesh, config=cfg)
-    np.testing.assert_array_equal(
-        dsort.gather_sorted(res_ov), dsort.gather_sorted(res_seq))

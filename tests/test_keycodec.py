@@ -1,19 +1,16 @@
-"""Order-preserving codecs + u64 engine path."""
-
-import os
+"""Order-preserving codecs + u64 keys through the main path."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
-from inplacemsdradixsort_tpu.config import SortConfig
-from inplacemsdradixsort_tpu.ops import keycodec as kc
-from inplacemsdradixsort_tpu.ops import pallas_engine as pe
+import inplacemsdradixsort as rs
+from inplacemsdradixsort.ops import keycodec as kc
 
-INTERP = os.environ.get("RUN_TPU_TESTS", "0") != "1"
-CFG = SortConfig(tile_elems=1024, range_bits=3, engine="pallas",
-                 interpret=INTERP)
+
+def _sort_u64(x):
+    with jax.enable_x64(True):
+        return np.asarray(jax.device_get(rs.sort(jnp.asarray(x)).keys))
 
 
 def test_i32_codec(rng):
@@ -47,19 +44,15 @@ def test_engine_u64(rng):
         0, 1 << 32, 3000, dtype=np.uint64
     )
     x[:5] = np.uint64(0xFFFFFFFFFFFFFFFF)
-    hi, lo = kc.split_u64_host(x)
-    shi, slo = pe.msd_sort_u64(jnp.asarray(hi), jnp.asarray(lo), CFG)
-    got = kc.join_u64_host(np.asarray(shi), np.asarray(slo))
+    got = _sort_u64(x)
+    assert got.dtype == np.uint64
     assert np.array_equal(got, np.sort(x))
 
 
 def test_engine_u64_equal_hi_oversized(rng):
-    # > vmem elements sharing the high word: exercises the 'done' fixup
+    # every key shares the high word: the order is all in the low word
     n = 16000
     x = (np.uint64(0xABCD1234) << np.uint64(32)) | rng.integers(
         0, 1 << 32, n, dtype=np.uint64
     )
-    hi, lo = kc.split_u64_host(x)
-    shi, slo = pe.msd_sort_u64(jnp.asarray(hi), jnp.asarray(lo), CFG)
-    got = kc.join_u64_host(np.asarray(shi), np.asarray(slo))
-    assert np.array_equal(got, np.sort(x))
+    assert np.array_equal(_sort_u64(x), np.sort(x))

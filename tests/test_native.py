@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from inplacemsdradixsort_tpu.utils import native
-from inplacemsdradixsort_tpu.utils import rng as pyrng
+from inplacemsdradixsort.utils import native
+from inplacemsdradixsort.utils import rng as pyrng
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native lib unavailable (no compiler)"

@@ -9,8 +9,8 @@ each 64-bit draw) and the additive checksum contract of the reference
 
 Here we regenerate the identical stream with the repo's own MT19937-64
 (utils/rng.py), validate every fixture field, and push the keys through
-the production engine — the sorted output must be bitwise-identical to
-the C-side qsort result.  No NUMA host or reference binary needed.
+the main sort path — the sorted output must be bitwise-identical to the
+C-side qsort result.  No NUMA host or reference binary needed.
 """
 
 import json
@@ -23,9 +23,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from inplacemsdradixsort_tpu.config import SortConfig
-from inplacemsdradixsort_tpu.ops.engine_v4 import sort_v4
-from inplacemsdradixsort_tpu.utils import rng as mtrng
+import inplacemsdradixsort as rs
+from inplacemsdradixsort.utils import rng as mtrng
 
 FIXTURE = os.path.join(
     os.path.dirname(__file__), "fixtures", "parity_seed42.json"
@@ -55,11 +54,8 @@ def test_input_checksum(fx, ref_keys):
 
 
 def test_sorted_bitwise_parity(fx, ref_keys):
-    """Engine output == the reference-side sorted sequence, bitwise."""
-    cfg = SortConfig(interpret=True, v3_sort_rows=32, v3_rmax=8,
-                     v3_cap_rows=32)
-    out, _ = sort_v4(jnp.asarray(ref_keys), (), cfg)
-    out = np.asarray(out)
+    """Sort output == the reference-side sorted sequence, bitwise."""
+    out = np.asarray(rs.sort(jnp.asarray(ref_keys)).keys)
     assert int(np.sum(out.astype(np.uint64), dtype=np.uint64)) \
         == fx["sorted_checksum"]
     assert out[:4].tolist() == fx["sorted_first4"]

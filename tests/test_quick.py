@@ -1,8 +1,7 @@
-"""`pytest -m quick` — the <5-minute CPU smoke subset (VERDICT r3 #8).
+"""`pytest -m quick` — the fast CPU smoke subset.
 
-One tiny-geometry case per engine (v4, v5, lsb, pallas, chunked, dsort)
-plus the public API, so in-loop regressions surface fast; the full
-matrix stays in the per-engine files for CI.
+One case each for the public API and the distributed sort, so in-loop
+regressions surface fast; the full matrix stays in the per-module files.
 """
 
 import numpy as np
@@ -11,12 +10,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from inplacemsdradixsort_tpu.config import SortConfig
+from inplacemsdradixsort.config import SortConfig
 
 pytestmark = pytest.mark.quick
-
-TINY = dict(interpret=True, min_engine_n=1, v3_sort_rows=64, v3_rmax=8,
-            v3_cap_rows=64)
 
 
 def _keys(n=16_384, seed=0):
@@ -24,53 +20,14 @@ def _keys(n=16_384, seed=0):
     return rng.integers(0, 2**32, n, dtype=np.uint32)
 
 
-def test_quick_v4():
-    from inplacemsdradixsort_tpu.ops.engine_v4 import sort_v4
-    x = _keys()
-    out, _ = sort_v4(jnp.asarray(x), (), SortConfig(**TINY))
-    assert np.array_equal(np.asarray(out), np.sort(x))
-
-
-def test_quick_v5():
-    from inplacemsdradixsort_tpu.ops.engine_v5 import sort_v5
-    from inplacemsdradixsort_tpu.ops.kernels_v5 import BLK
-    x = _keys(3 * BLK + 13, seed=1)
-    cfg = SortConfig(interpret=True, min_engine_n=1, v5_pitch_rows=64,
-                     v3_sort_rows=512, v3_rmax=8, v3_cap_rows=32)
-    out, _ = sort_v5(jnp.asarray(x), (), cfg)
-    assert np.array_equal(np.asarray(out), np.sort(x))
-
-
-# NOTE: no LSB case here — the digit-mode route interprets a 256-wide
-# unrolled kernel body per grid step, ~2 min on this box regardless of n,
-# which busts the <60 s quick budget.  LSB coverage: tests/test_engine_lsb.py.
-
-
-def test_quick_chunked():
-    from inplacemsdradixsort_tpu.ops.chunked import sort_external
-    rng = np.random.default_rng(3)
-    nchunks, csz = 2, 4_096
-    chunks = [rng.integers(0, 2**32, csz, dtype=np.uint32)
-              for _ in range(nchunks)]
-    cfg = SortConfig(**TINY)
-    got = np.concatenate([
-        np.asarray(piece[0]) for piece in sort_external(
-            lambda i: (jnp.asarray(chunks[i]),), nchunks,
-            nchunks * csz, cfg, nranges=4)
-    ])
-    assert np.array_equal(got, np.sort(np.concatenate(chunks)))
-
-
 def test_quick_dsort():
-    from inplacemsdradixsort_tpu.parallel.dsort import distributed_sort
-    from inplacemsdradixsort_tpu.parallel.mesh import make_sort_mesh
+    from inplacemsdradixsort.parallel.dsort import distributed_sort
+    from inplacemsdradixsort.parallel.mesh import make_sort_mesh
     if len(jax.devices()) < 4:
         pytest.skip("needs >= 4 virtual devices")
     mesh = make_sort_mesh(4)
     x = _keys(64_000, seed=4)
-    res = distributed_sort(jnp.asarray(x), mesh=mesh,
-                           config=SortConfig(**TINY),
-                           local_engine="xla")
+    res = distributed_sort(jnp.asarray(x), mesh=mesh)
     ks = np.asarray(jax.device_get(res.keys))
     cnts = np.asarray(jax.device_get(res.counts))
     got = np.concatenate([ks[i, :cnts[i]] for i in range(len(cnts))])
@@ -78,7 +35,7 @@ def test_quick_dsort():
 
 
 def test_quick_api():
-    import inplacemsdradixsort_tpu as rs
+    import inplacemsdradixsort as rs
     x = _keys(5_000, seed=5)
     res = rs.sort(jnp.asarray(x), config=SortConfig(engine="xla"))
     assert np.array_equal(np.asarray(res.keys), np.sort(x))

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from inplacemsdradixsort_tpu.ops import radix_ref as rr
+from inplacemsdradixsort.ops import radix_ref as rr
 
 
 @pytest.mark.parametrize("n,tile,bits,shift", [
@@ -42,7 +42,7 @@ def test_cursors_match_bincount(rng):
 
 def test_padded_layout_invariants(rng):
     hist = rng.integers(0, 500, (7, 16)).astype(np.int64)
-    slots, bstarts, bcaps = rr.padded_layout(hist, lanes=128)
+    slots, bstarts, bcaps = rr.padded_layout(hist, align=128)
     padded = ((hist + 127) // 128) * 128
     # slots lane-aligned, within bucket bounds, non-overlapping
     assert np.all(slots % 128 == 0)

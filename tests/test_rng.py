@@ -9,7 +9,7 @@ reference library is available.
 import numpy as np
 import pytest
 
-from inplacemsdradixsort_tpu.utils import rng as mtrng
+from inplacemsdradixsort.utils import rng as mtrng
 
 # Standard MT19937-64 with seed 5489: canonical first outputs
 # (Matsumoto & Nishimura reference implementation).

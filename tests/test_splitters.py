@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from inplacemsdradixsort_tpu.ops import splitters as sp
+from inplacemsdradixsort.ops import splitters as sp
 
 
 def test_extract_delimiters_quantiles(rng):

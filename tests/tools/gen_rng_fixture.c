@@ -13,7 +13,7 @@
  *
  * The committed fixture (tests/fixtures/parity_seed42.json) was produced
  * by this program; the Python test regenerates the same stream with the
- * repo's MT19937-64 (utils/rng.py) and checks the TPU engine's sorted
+ * repo's MT19937-64 (utils/rng.py) and checks the sort path's sorted
  * output bitwise against it — an executed parity anchor that does not
  * need a 64-thread NUMA host (VERDICT round-1 item 8).
  *
